@@ -6,11 +6,10 @@ Renders the flagship path-traced scene with the sample space sharded
 over meshes of 1, 2, 4, ... N devices (fixed total work) and reports
 rays/sec and per-device efficiency vs the 1-device run.
 
-On real multi-chip hardware this measures ICI scaling; with
---cpu N it runs on N virtual CPU devices, which validates the sharding
-machinery and collective layout but NOT real efficiency (the virtual
-devices share the host's cores). The driver's single real chip gives the
-1-chip baseline.
+On a host of GPUs this measures scaling over NVLink, which joins the
+cards all to all; with --cpu N it runs on N virtual CPU devices, which
+validates the sharding machinery and collective layout but NOT real
+efficiency (the virtual devices share the host's cores).
 
 Prints one JSON line per mesh size.
 """
@@ -32,7 +31,8 @@ def _pworker(coord, nproc, pid, res, spp, depth):
                                + " --xla_force_host_platform_device_count=1")
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/tpuprt_jax_cache_cpu")
+    from prt.utils.jax_cache import enable_compile_cache
+    enable_compile_cache()
     jax.distributed.initialize(coordinator_address=coord,
                                num_processes=nproc, process_id=pid)
     import numpy as np_
@@ -41,9 +41,9 @@ def _pworker(coord, nproc, pid, res, spp, depth):
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
     from __graft_entry__ import _flagship_scene
-    from tpuprt import render as R
-    from tpuprt.film import film as film_mod
-    from tpuprt.samplers.samplers import SamplerConfig
+    from prt import render as R
+    from prt.film import film as film_mod
+    from prt.samplers.samplers import SamplerConfig
 
     xres = yres = res
     scene = _flagship_scene(xres, yres)
@@ -196,14 +196,13 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/tpuprt_jax_cache" +
-                      ("_cpu" if args.cpu else ""))
+    from prt.utils.jax_cache import enable_compile_cache
+    enable_compile_cache()
 
     from __graft_entry__ import _flagship_scene
-    from tpuprt import render as R
-    from tpuprt.parallel import shard
-    from tpuprt.samplers.samplers import SamplerConfig
+    from prt import render as R
+    from prt.parallel import shard
+    from prt.samplers.samplers import SamplerConfig
 
     xres = yres = args.res
     scene = _flagship_scene(xres, yres)
@@ -247,7 +246,7 @@ def main():
         valid = jnp.ones(k, bool)
 
         def body(sc, fdata, pxa, pya, sia, va, do_psum):
-            from tpuprt.film import film as film_mod
+            from prt.film import film as film_mod
             f = film_mod.Film(data=fdata[0], xres=xres, yres=yres,
                               crop=opts.crop)
             f = R.render_chunk(sc, opts, f, pxa, pya, sia, va)

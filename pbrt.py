@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Command-line renderer: parse a .pbrt scene, render, write the EXR.
 
-The TPU-native front end matching the reference's main()
+The front end matching the reference's main()
 (/root/reference/renderer/pbrt.cpp:28-51): pbrtInit -> ParseFile ->
 pbrtCleanup becomes parse -> render (with progress bar) -> write_exr,
 followed by the stats table (printed at WorldEnd in the reference,
@@ -32,12 +32,12 @@ def main(argv=None):
                     help="suppress progress bar and stats table")
     args = ap.parse_args(argv)
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/tpuprt_jax_cache")
-    from tpuprt.scene.parser import load_scene
-    from tpuprt import render as R
-    from tpuprt.io import exr
-    from tpuprt.utils.stats import StatsRegistry
+    from prt.utils.jax_cache import enable_compile_cache
+    enable_compile_cache()
+    from prt.scene.parser import load_scene
+    from prt import render as R
+    from prt.io import exr
+    from prt.utils.stats import StatsRegistry
 
     scene, opts = load_scene(args.scene)
     # The EXR writer stores HALF pixels (reference core/exrio.cpp), so the

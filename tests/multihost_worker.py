@@ -14,19 +14,21 @@ def main():
         + " --xla_force_host_platform_device_count=2")
     import jax
     jax.config.update("jax_platforms", "cpu")
+    from prt.utils.jax_cache import cpu_cache_dir
     jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/tpuprt_jax_cache_cpu")
+                      cpu_cache_dir(f"multihost_{pid}"))
+    print("cache_dir", jax.config.jax_compilation_cache_dir, flush=True)
 
-    # Initialize BEFORE importing tpuprt: the package builds module-level
+    # Initialize BEFORE importing prt's modules: they build module-level
     # jnp constants on import, which would initialize the XLA backend.
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=int(nproc),
                                process_id=int(pid))
-    from tpuprt.parallel import multihost
+    from prt.parallel import multihost
     assert jax.process_count() == int(nproc)
     assert len(jax.devices()) == 2 * int(nproc)
 
-    from tpuprt.scene.parser import load_scene_string
+    from prt.scene.parser import load_scene_string
     scene, opts = load_scene_string(SCENE)
     rgb, alpha = multihost.render_multihost(scene, opts)
 

@@ -3,8 +3,8 @@ reciprocity — the kernel-level test strategy of SURVEY.md section 4."""
 import numpy as np
 import jax.numpy as jnp
 
-from tpuprt.bsdf import bsdf as B
-from tpuprt.core import rng
+from prt.bsdf import bsdf as B
+from prt.core import rng
 
 
 def _single_lobe_batch(n, kind, flags, R=(1.0, 1.0, 1.0), eta=(1.0, 1.5, 1.0),

@@ -3,11 +3,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tpuprt.scene.parser import load_scene_string
-from tpuprt.accel import intersect as isect
-from tpuprt.accel import bvh as bvh_mod
-from tpuprt.accel.bvh_build import build_bvh
-from tpuprt.scene.data import BvhAccel
+from prt.scene.parser import load_scene_string
+from prt.accel import intersect as isect
+from prt.accel import bvh as bvh_mod
+from prt.accel.bvh_build import build_bvh
+from prt.scene.data import BvhAccel
 import dataclasses
 
 
@@ -114,64 +114,3 @@ def test_mixed_quadric_scene():
                                rtol=2e-5, atol=2e-5)
 
 
-def test_packet_pallas_matches_loop_traversal():
-    """The Pallas packet-traversal kernel (interpret mode on CPU) must
-    agree with the jnp link-walk on hits, ids, and t."""
-    from tpuprt.accel import bvh as bvh_mod
-
-    scene = _random_mesh_scene(500, seed=11)
-    scene_bvh = dataclasses.replace(scene, accel=build_bvh(scene))
-    o, d, mint, maxt = _rays(700, seed=12)
-    old = bvh_mod.force_pallas
-    try:
-        bvh_mod.force_pallas = False
-        t_ref, id_ref, hit_ref = bvh_mod.intersect(scene_bvh, o, d, mint,
-                                                   maxt)
-        bvh_mod.force_pallas = True
-        t_k, id_k, hit_k = bvh_mod.intersect(scene_bvh, o, d, mint, maxt)
-    finally:
-        bvh_mod.force_pallas = old
-    assert (np.asarray(hit_k) == np.asarray(hit_ref)).all()
-    m = np.asarray(hit_ref)
-    assert (np.asarray(id_k)[m] == np.asarray(id_ref)[m]).all()
-    np.testing.assert_allclose(np.asarray(t_k)[m], np.asarray(t_ref)[m],
-                               rtol=2e-5, atol=2e-5)
-    # any-hit agreement too.
-    try:
-        bvh_mod.force_pallas = False
-        _, _, h_ref = bvh_mod.intersect(scene_bvh, o, d, mint,
-                                        jnp.full((700,), 1.2),
-                                        any_hit=True)
-        bvh_mod.force_pallas = True
-        _, _, h_k = bvh_mod.intersect(scene_bvh, o, d, mint,
-                                      jnp.full((700,), 1.2), any_hit=True)
-    finally:
-        bvh_mod.force_pallas = old
-    assert (np.asarray(h_k) == np.asarray(h_ref)).all()
-
-
-def test_chunked_traversal_matches_single_table():
-    """traverse_chunked (streamed HBM node chunks, VERDICT r3 item 3) must
-    agree exactly with the VMEM-resident kernel: arbitrary contiguous
-    preorder ranges are walkable because the skip-walk cursor is
-    monotonically increasing."""
-    import jax.numpy as jnp
-    from tpuprt.ops import bvh_pallas
-    scene = _random_mesh_scene(400)
-    bvh = build_bvh(scene)
-    o, d, mint, maxt = _rays(4096)
-    rays = jnp.concatenate([o.T, d.T, mint[None], maxt[None]], axis=0)
-    nodes = jnp.pad(bvh.nodes, ((0, 0), (0, 128 - bvh.nodes.shape[1])))
-    t1, i1 = bvh_pallas.traverse(nodes, rays, nn=bvh.n_nodes,
-                                 leaf_k=bvh.leaf_k, interpret=True)
-    # cap=64 forces several chunks on this small tree.
-    t2, i2 = bvh_pallas.traverse_chunked(nodes, rays, nn=bvh.n_nodes,
-                                         leaf_k=bvh.leaf_k, interpret=True,
-                                         cap=64)
-    assert (np.asarray(i1) == np.asarray(i2)).all()
-    np.testing.assert_allclose(np.asarray(t1), np.asarray(t2),
-                               rtol=1e-5, atol=1e-5)
-    _, ia = bvh_pallas.traverse_chunked(nodes, rays, nn=bvh.n_nodes,
-                                        leaf_k=bvh.leaf_k, any_hit=True,
-                                        interpret=True, cap=64)
-    assert ((np.asarray(ia) >= 0) == (np.asarray(i1) >= 0)).all()

@@ -4,7 +4,7 @@ strategy: intersection math vs closed form, warps via statistics)."""
 import numpy as np
 import jax.numpy as jnp
 
-from tpuprt.core import mc, rng, transform as tf, vecmath as vm
+from prt.core import mc, rng, transform as tf, vecmath as vm
 
 
 def test_quadratic():

@@ -5,9 +5,9 @@ variance win on a concentrated HDR map."""
 import numpy as np
 import jax.numpy as jnp
 
-from tpuprt.io.mipmap_build import build_pyramid
-from tpuprt.lights import lights as lt
-from tpuprt.scene.build import SceneBuilder
+from prt.io.mipmap_build import build_pyramid
+from prt.lights import lights as lt
+from prt.scene.build import SceneBuilder
 
 
 def _hot_spot_map(nu=32, nv=16, bg=0.01, hot=50.0):

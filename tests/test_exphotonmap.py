@@ -4,11 +4,11 @@ agreement with the plain photon map / path tracer in a closed box."""
 import numpy as np
 import jax.numpy as jnp
 
-from tpuprt import render as R
-from tpuprt.integrators import exphotonmap as xpm
-from tpuprt.integrators import photonmap as pm
-from tpuprt.samplers import samplers as smp
-from tpuprt.scene.parser import load_scene_string
+from prt import render as R
+from prt.integrators import exphotonmap as xpm
+from prt.integrators import photonmap as pm
+from prt.samplers import samplers as smp
+from prt.scene.parser import load_scene_string
 
 
 BOX = """

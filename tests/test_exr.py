@@ -1,7 +1,7 @@
 """EXR writer/reader roundtrip (replacement for core/exrio.cpp)."""
 import numpy as np
 
-from tpuprt.io import exr
+from prt.io import exr
 
 
 def test_roundtrip_half_zips(tmp_path):

@@ -9,13 +9,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tpuprt import render as R
-from tpuprt.core import transform as tf
-from tpuprt.cameras import cameras as cam
-from tpuprt.integrators import common
-from tpuprt.scene.build import SceneBuilder
-from tpuprt.samplers import samplers as smp
-from tpuprt.textures.graph import TexNodeMeta
+from prt import render as R
+from prt.core import transform as tf
+from prt.cameras import cameras as cam
+from prt.integrators import common
+from prt.scene.build import SceneBuilder
+from prt.samplers import samplers as smp
+from prt.textures.graph import TexNodeMeta
 
 
 def _ground_plane(b, mat, s=5.0, y=0.0):
@@ -27,7 +27,7 @@ def _ground_plane(b, mat, s=5.0, y=0.0):
 
 
 def _down_ray_hits(scene, xs, zs, y0=2.0):
-    from tpuprt.accel import intersect as isect
+    from prt.accel import intersect as isect
     n = len(xs)
     o = jnp.stack([jnp.asarray(xs), jnp.full((n,), y0),
                    jnp.asarray(zs)], -1).astype(jnp.float32)
@@ -115,7 +115,7 @@ def test_bump_mapping_perturbs_shading_normal():
 def test_integrator_returns_camera_segment_t():
     """Every integrator returns the first-hit t so the driver's volume
     composition reuses it instead of re-intersecting (r1 VERDICT weak #6)."""
-    from tpuprt.integrators import whitted, path, directlighting, debug
+    from prt.integrators import whitted, path, directlighting, debug
     b = SceneBuilder()
     mat = b.matte()
     b.add_sphere(np.asarray(tf.translate([0, 0, 2.0])), 0.5, material=mat)
@@ -144,7 +144,7 @@ def test_adam_recovers_albedo():
     """Inverse rendering (BASELINE config 5 shape): recover a matte sphere's
     albedo from a target image with an Adam loop, not just one step."""
     import optax
-    from tpuprt.parallel import shard
+    from prt.parallel import shard
 
     def build(albedo):
         b = SceneBuilder()

@@ -18,7 +18,7 @@ import os
 import numpy as np
 import pytest
 
-from tpuprt.io.exr import read_exr
+from prt.io.exr import read_exr
 
 SCENES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scenes")
@@ -31,8 +31,8 @@ def _downsample(x, k=4):
 
 
 def _compare(i, spp=None, tol_rel=0.08, tol_mean=0.05):
-    from tpuprt.scene.parser import load_scene
-    from tpuprt import render as R
+    from prt.scene.parser import load_scene
+    from prt import render as R
     scene, opts = load_scene(os.path.join(SCENES, f"config{i}.pbrt"))
     if spp is not None:
         opts = opts._replace(

@@ -4,10 +4,10 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from tpuprt.core import rng, transform as tf
-from tpuprt.scene.build import SceneBuilder
-from tpuprt.accel import intersect as isect
-from tpuprt.accel.grid_build import build_grid
+from prt.core import rng, transform as tf
+from prt.scene.build import SceneBuilder
+from prt.accel import intersect as isect
+from prt.accel.grid_build import build_grid
 
 
 def _random_scene(n_spheres=20, n_tris=30, seed=3):
@@ -36,7 +36,7 @@ def _rays(n=512, seed=7):
     target = jnp.stack([rng.uniform(i, seed, 3) * 6 - 3,
                         rng.uniform(i, seed, 4) * 6 - 3,
                         rng.uniform(i, seed, 5) * 6 - 3], -1)
-    from tpuprt.core import vecmath as vm
+    from prt.core import vecmath as vm
     d = vm.normalize(target - o)
     return o, d, jnp.zeros((n,)), jnp.full((n,), 1e30)
 

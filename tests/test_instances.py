@@ -5,8 +5,8 @@ duplication; renders must match the duplication path exactly and memory
 must stay O(prototype + instances)."""
 import numpy as np
 
-from tpuprt.scene.parser import load_scene_string
-from tpuprt import render as R
+from prt.scene.parser import load_scene_string
+from prt import render as R
 
 
 HEAD = """
@@ -105,7 +105,7 @@ def test_instance_memory_is_o_proto_plus_n():
 
 def test_wavefront_serves_instanced_scenes():
     """The regenerating-pool driver must handle the instanced aggregate."""
-    from tpuprt.integrators import path_wavefront
+    from prt.integrators import path_wavefront
     sc_i, opts = load_scene_string(_instanced_text())
     opts = opts._replace(filter_kind="box", filter_xwidth=0.5,
                          filter_ywidth=0.5, chunk_size=1024)
@@ -121,7 +121,7 @@ def test_instance_transform_gradient():
     import dataclasses
     import jax
     import jax.numpy as jnp
-    from tpuprt.accel import instances as inst_mod
+    from prt.accel import instances as inst_mod
 
     sc0, _ = load_scene_string(_instanced_text())
     inst = sc0.instances
@@ -188,7 +188,7 @@ def test_instanced_shading_geometry_matches_main():
     normals AND dndu/dndv (VERDICT r4: instanced dn was zero where the
     reference transforms it, core/primitive.cpp:75-85)."""
     import jax.numpy as jnp
-    from tpuprt.accel import intersect as isect
+    from prt.accel import intersect as isect
 
     # A two-triangle patch with bent vertex normals and uvs.
     mesh = ('Shape "trianglemesh" "integer indices" [0 1 2  0 2 3]\n'

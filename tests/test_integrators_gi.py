@@ -4,11 +4,11 @@ the reference's only correctness bar for these plugins (no test suite
 exists upstream; SURVEY.md section 4)."""
 import numpy as np
 
-from tpuprt import render as R
-from tpuprt.integrators import igi as igi_mod
-from tpuprt.integrators import irradiancecache as ic_mod
-from tpuprt.samplers import samplers as smp
-from tpuprt.scene.parser import load_scene_string
+from prt import render as R
+from prt.integrators import igi as igi_mod
+from prt.integrators import irradiancecache as ic_mod
+from prt.samplers import samplers as smp
+from prt.scene.parser import load_scene_string
 
 from test_photonmap import _box_scene
 

@@ -3,11 +3,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tpuprt.accel import intersect as isect
-from tpuprt.accel import kdtree as kd_mod
-from tpuprt.accel.kdtree_build import build_kdtree, _build_native, \
+from prt.accel import intersect as isect
+from prt.accel import kdtree as kd_mod
+from prt.accel.kdtree_build import build_kdtree, _build_native, \
     _build_numpy
-from tpuprt.scene.build import SceneBuilder
+from prt.scene.build import SceneBuilder
 
 
 def _tri_soup_scene(n_tris=200, seed=0, accel="none"):
@@ -35,7 +35,7 @@ def _rand_rays(n, seed=1):
 
 def test_native_matches_numpy_build():
     scene = _tri_soup_scene(150)
-    from tpuprt.accel.grid_build import _prim_bounds
+    from prt.accel.grid_build import _prim_bounds
     lo, hi = _prim_bounds(scene)
     nat = _build_native(lo, hi, 80.0, 1.0, 0.5, 1, -1)
     if nat is None:

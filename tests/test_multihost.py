@@ -31,14 +31,18 @@ def test_two_process_render_matches_single(tmp_path):
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for i in range(2)]
     outs = [p.communicate(timeout=850)[0] for p in procs]
-    for p, o in zip(procs, outs):
+    from prt.utils.jax_cache import cpu_cache_dir
+    for i, (p, o) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, o.decode()[-3000:]
+        # Each worker keeps its compile cache in its own host-keyed
+        # sub-directory of the checkout's (or JAX_COMPILATION_CACHE_DIR's).
+        assert f"cache_dir {cpu_cache_dir(f'multihost_{i}')}\n" in o.decode()
     z = np.load(out)
 
     # Single-process reference of the same scene.
     from tests.multihost_worker import SCENE
-    from tpuprt.scene.parser import load_scene_string
-    from tpuprt import render as R
+    from prt.scene.parser import load_scene_string
+    from prt import render as R
     scene, opts = load_scene_string(SCENE)
     rgb_ref, alpha_ref = R.render(scene, opts)
 

@@ -9,9 +9,9 @@ import sys
 import numpy as np
 import pytest
 
-from tpuprt.utils.stats import StatsRegistry, _suffixed
-from tpuprt.utils.progress import ProgressReporter
-from tpuprt.utils import errors
+from prt.utils.stats import StatsRegistry, _suffixed
+from prt.utils.progress import ProgressReporter
+from prt.utils import errors
 
 
 SCENE = """
@@ -31,7 +31,7 @@ WorldEnd
 
 
 def _load(text):
-    from tpuprt.scene.parser import load_scene_string
+    from prt.scene.parser import load_scene_string
     return load_scene_string(text)
 
 
@@ -85,7 +85,7 @@ def test_film_params_flow_to_options():
 
 
 def test_checkpoint_resume_matches_straight_render(tmp_path):
-    from tpuprt import render as R
+    from prt import render as R
     scene, opts = _load(SCENE)
     opts = opts._replace(chunk_size=256,
                          filename=str(tmp_path / "partial.exr"))
@@ -96,7 +96,7 @@ def test_checkpoint_resume_matches_straight_render(tmp_path):
 
     # Interrupted render: checkpoint written mid-way, then resume.
     ckpt = str(tmp_path / "film.ckpt.npz")
-    film = __import__("tpuprt.film.film", fromlist=["film"])
+    film = __import__("prt.film.film", fromlist=["film"])
     f0 = film.make_film(opts.xres, opts.yres, opts.crop)
     # Render the first half of the chunks manually via the public pieces.
     import math
@@ -135,7 +135,7 @@ def test_cli_end_to_end(tmp_path):
     import pbrt as cli
     rc = cli.main([str(scene_file), "-o", str(out), "--quiet"])
     assert rc == 0 and out.exists()
-    from tpuprt.io import exr
+    from prt.io import exr
     rgb, _alpha = exr.read_exr(str(out))
     assert rgb.shape == (24, 32, 3)
     assert np.isfinite(rgb).all()

@@ -2,8 +2,8 @@
 api.cpp state machine)."""
 import numpy as np
 
-from tpuprt.scene.parser import load_scene_string
-from tpuprt.scene import data as D
+from prt.scene.parser import load_scene_string
+from prt.scene import data as D
 
 SCENE = """
 # config-1-like scene

@@ -5,13 +5,13 @@ tracer in a closed box."""
 import numpy as np
 import jax.numpy as jnp
 
-from tpuprt import render as R
-from tpuprt.cameras import cameras as cam
-from tpuprt.core import transform as tf
-from tpuprt.integrators import photonmap as pm
-from tpuprt.lights import emission
-from tpuprt.samplers import samplers as smp
-from tpuprt.scene.build import SceneBuilder
+from prt import render as R
+from prt.cameras import cameras as cam
+from prt.core import transform as tf
+from prt.integrators import photonmap as pm
+from prt.lights import emission
+from prt.samplers import samplers as smp
+from prt.scene.build import SceneBuilder
 
 
 def _floor_scene(xres=24, yres=24, extra=None):

@@ -3,11 +3,11 @@ point light, perspective camera, stratified sampler."""
 import numpy as np
 import pytest
 
-from tpuprt.core import transform as tf
-from tpuprt.scene.build import SceneBuilder
-from tpuprt.cameras import cameras as cam
-from tpuprt.samplers.samplers import SamplerConfig
-from tpuprt import render as R
+from prt.core import transform as tf
+from prt.scene.build import SceneBuilder
+from prt.cameras import cameras as cam
+from prt.samplers.samplers import SamplerConfig
+from prt import render as R
 
 
 def build_sphere_scene(xres=64, yres=64):
@@ -70,8 +70,8 @@ def test_bestcandidate_sampler_table():
     it agrees with the lowdiscrepancy render in the mean."""
     import numpy as np
     import jax.numpy as jnp
-    from tpuprt.samplers import samplers as smp
-    from tpuprt.samplers.bc_gen import load_table
+    from prt.samplers import samplers as smp
+    from prt.samplers.bc_gen import load_table
 
     t = load_table()
     assert t.shape == (4096, 5)
@@ -97,8 +97,8 @@ def test_bestcandidate_sampler_table():
         v = np.asarray(cs[k])
         assert (v >= 0).all() and (v <= 1).all(), k
 
-    from tpuprt.scene.parser import load_scene_string
-    from tpuprt import render as R
+    from prt.scene.parser import load_scene_string
+    from prt import render as R
     SC = """
 Film "image" "integer xresolution" [32] "integer yresolution" [32]
 LookAt 0 0 -4  0 0 0  0 1 0

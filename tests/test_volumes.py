@@ -2,8 +2,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tpuprt.scene.build import SceneBuilder
-from tpuprt.volumes import regions as vr
+from prt.scene.build import SceneBuilder
+from prt.volumes import regions as vr
 
 
 def _scene_with_homog(sigma_a=(0.5, 0.5, 0.5), sigma_s=(0.0, 0.0, 0.0),
@@ -36,7 +36,7 @@ def test_ray_outside_box_unattenuated():
 
 
 def test_emission_li():
-    from tpuprt.integrators import volume as vi
+    from prt.integrators import volume as vi
     scene = _scene_with_homog(sigma_a=(0.1,) * 3, le=(1.0, 2.0, 3.0))
     o = jnp.asarray([[-5.0, 0.0, 0.0]])
     d = jnp.asarray([[1.0, 0.0, 0.0]])

@@ -5,10 +5,10 @@ so regeneration changes scheduling but not any sample's estimate."""
 import numpy as np
 import pytest
 
-from tpuprt.scene.parser import load_scene_string
-from tpuprt import render as R
-from tpuprt.integrators import path_wavefront
-from tpuprt.utils.stats import StatsRegistry
+from prt.scene.parser import load_scene_string
+from prt import render as R
+from prt.integrators import path_wavefront
+from prt.utils.stats import StatsRegistry
 
 
 CORNELL = """
@@ -128,7 +128,7 @@ def test_phase_functions_normalize():
     """PhaseRayleigh/MieHazy/MieMurky/Schlick (volume.cpp:28-56) must each
     integrate to 1 over the sphere."""
     import jax.numpy as jnp
-    from tpuprt.core import mc
+    from prt.core import mc
     n = 200000
     rng_ = np.random.default_rng(0)
     cos_t = jnp.asarray(rng_.uniform(-1, 1, n), jnp.float32)
@@ -198,7 +198,7 @@ def test_wavefront_photonmap_matches_scan():
     photonmap estimates per sample — photon_radiance's RNG streams are
     functions of (pixel, sample, depth) only, so the regenerating drive
     cannot change them. Uses a small map build + final gather."""
-    from tpuprt.integrators import photonmap as pm
+    from prt.integrators import photonmap as pm
     scene, opts = load_scene_string(CORNELL)
     prm = pm.PhotonParams(caustic=500, direct=4000, indirect=4000,
                           max_dist=0.4, final_gather=True,

@@ -13,7 +13,7 @@ import numpy as np
 
 
 def _data_window(path):
-    from tpuprt.io.exr import _read_attrs, _MAGIC
+    from prt.io.exr import _read_attrs, _MAGIC
     with open(path, "rb") as f:
         magic, _ = struct.unpack("<ii", f.read(8))
         assert magic == _MAGIC
@@ -27,7 +27,7 @@ def main():
     if len(sys.argv) < 3:
         print("usage: exrassemble.py out.exr in1.exr in2.exr ...")
         sys.exit(1)
-    from tpuprt.io.exr import read_exr, write_exr
+    from prt.io.exr import read_exr, write_exr
     out_path = sys.argv[1]
     tiles = sys.argv[2:]
     _, disp = _data_window(tiles[0])

@@ -9,7 +9,7 @@ import sys
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import numpy as np
-from tpuprt.io.exr import read_exr
+from prt.io.exr import read_exr
 
 
 def main():

@@ -42,8 +42,8 @@ def main():
     ap.add_argument("--bloomweight", type=float, default=0.2)
     args = ap.parse_args()
 
-    from tpuprt.io.exr import read_exr
-    from tpuprt.tonemaps.tonemaps import apply_imaging_pipeline
+    from prt.io.exr import read_exr
+    from prt.tonemaps.tonemaps import apply_imaging_pipeline
     rgb, _ = read_exr(args.input)
     out = apply_imaging_pipeline(
         rgb * args.scale, tonemap=args.tonemap, gamma=args.gamma,

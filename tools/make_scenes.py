@@ -2,7 +2,7 @@
 """Generate the BASELINE.json parity scenes as .pbrt text.
 
 One scene file per config, consumed byte-identically by BOTH renderers
-(the reference binary and tpuprt), so golden-image comparisons test the
+(the reference binary and prt), so golden-image comparisons test the
 renderer, not the scene encoding. Meshes are procedural (icosphere,
 sine terrain) because no external assets ship with the repo.
 

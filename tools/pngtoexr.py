@@ -86,7 +86,7 @@ def main():
     alpha = (alpha8.astype(np.float32) / 255.0
              if alpha8 is not None else np.ones(rgb.shape[:2], np.float32))
 
-    from tpuprt.io.exr import write_exr
+    from prt.io.exr import write_exr
     write_exr(out, rgb.astype(np.float32), alpha)
     print(f"{args.input} ({rgb.shape[1]}x{rgb.shape[0]}) -> {out}")
 

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Summarize a jax.profiler xplane trace: per-op device time table.
 
-The tensorboard profile plugin in this image cannot parse xplanes
-(pywrap ABI mismatch), so this is a dependency-free protobuf wire-format
-walker for the XSpace container (tensorflow/core/profiler/protobuf/
-xplane.proto). It extracts every device plane's (event name, total
-duration, occurrences) and prints ops sorted by total time — the table
-that drives the perf rounds (PERF_NOTES.md) and the roofline accounting.
+A dependency-free protobuf wire-format walker for the XSpace container
+(tensorflow/core/profiler/protobuf/xplane.proto). It extracts every GPU
+device plane's (line, event name, total duration, occurrences) and prints
+ops sorted by total time. A GPU plane has several lines over the same
+interval (XLA modules, XLA ops, streams), so rows are keyed by line name
+and a line's rows are never summed with another's.
 
-Usage: python tools/xplane_summary.py /tmp/tracedir [--top 30] [--csv]
+Usage: python tools/xplane_summary.py TRACEDIR [--top 30] [--csv]
 """
 import glob
 import json
@@ -101,14 +101,12 @@ def op_table(tracedir, device_only=True):
     out = {}
     for path in glob.glob(tracedir + "/**/*.xplane.pb", recursive=True):
         for plane in parse_xspace(path):
-            is_dev = ("TPU" in plane["name"] or "/device:" in plane["name"]
-                      or "GPU" in plane["name"])
-            if device_only and not is_dev:
+            if device_only and not plane["name"].startswith("/device:GPU"):
                 continue
             names = plane["event_names"]
             for line in plane["lines"]:
                 for mid, dur_ps, _occ in line["events"]:
-                    nm = names.get(mid, f"#{mid}")
+                    nm = f"[{line['name']}] {names.get(mid, f'#{mid}')}"
                     cur = out.setdefault(nm, [0.0, 0])
                     cur[0] += dur_ps * 1e-12
                     cur[1] += 1
@@ -129,7 +127,7 @@ def main():
         for nm, (s, c) in rows:
             print(f"{json.dumps(nm)},{s:.6f},{c}")
     else:
-        print(f"{'total_s':>10} {'count':>7}  op   (device total "
+        print(f"{'total_s':>10} {'count':>7}  [line] op   (all lines "
               f"{total:.4f} s)")
         for nm, (s, c) in rows:
             print(f"{s:10.4f} {c:7d}  {nm[:110]}")
